@@ -1,4 +1,4 @@
-// Cell-list neighbor builder for sclmd_tpu.
+// Cell-list neighbor builder for sclmd_jax.
 //
 // The JAX potentials (models/tersoff.py, models/sw.py, models/nnp.py)
 // consume a static padded neighbor table built once from the reference

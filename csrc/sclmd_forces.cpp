@@ -1,10 +1,10 @@
-// Native force engine for sclmd_tpu.
+// Native force engine for sclmd_jax.
 //
 // The host-side analog of the reference's in-process LAMMPS library
 // (lammpsdriver.py loads liblammps via ctypes): a small C++ engine with
 // a C ABI that evaluates pair-potential forces/energies and central-
 // difference dynamical matrices for junction geometries. Used through
-// sclmd_tpu.models.native.NativeDriver (ctypes), following the same
+// sclmd_jax.models.native.NativeDriver (ctypes), following the same
 // driver protocol (.force(q), .f0, .conv, .dynmat()).
 //
 // Potentials: Lennard-Jones 12-6 (shifted), Morse, harmonic bonds.

@@ -11,14 +11,10 @@ Run:  python examples/compareforce.py
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import md
-from sclmd_tpu.models.tersoff import TersoffDriver, graphene_ribbon
-from sclmd_tpu.utils.tools import avdf
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import baths as B
+from sclmd_jax.md import md
+from sclmd_jax.models.tersoff import TersoffDriver, graphene_ribbon
+from sclmd_jax.utils.tools import avdf
 
 
 x = graphene_ribbon(4, 2)

@@ -15,17 +15,13 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import md
-from sclmd_tpu.models.harmonic import chain_dynmat
-from sclmd_tpu.postprocess.lambda_pipeline import (LambdaPipeline,
+from sclmd_jax import baths as B
+from sclmd_jax.md import md
+from sclmd_jax.models.harmonic import chain_dynmat
+from sclmd_jax.postprocess.lambda_pipeline import (LambdaPipeline,
                                                    fft_order_grid)
-from sclmd_tpu.utils.io import ReadwbLambda, WritewbLambda
-from sclmd_tpu.utils.tools import calHF
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax.utils.io import ReadwbLambda, WritewbLambda
+from sclmd_jax.utils.tools import calHF
 
 
 quick = "--quick" in sys.argv

@@ -9,13 +9,9 @@ Run:  python examples/current_induced/runnegf.py
 
 import numpy as np
 
-from sclmd_tpu import units as U
-from sclmd_tpu.negf import bpt
-from sclmd_tpu.models.harmonic import chain_dynmat
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import units as U
+from sclmd_jax.negf import bpt
+from sclmd_jax.models.harmonic import chain_dynmat
 
 
 n = 30

@@ -16,15 +16,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B, units as U
-from sclmd_tpu.md import GLESystem, initial_state
-from sclmd_tpu.models.harmonic import chain_dynmat
-from sclmd_tpu.parallel.ensemble import (ensemble_noise, ensemble_run,
+from sclmd_jax import baths as B, units as U
+from sclmd_jax.md import GLESystem, initial_state
+from sclmd_jax.models.harmonic import chain_dynmat
+from sclmd_jax.parallel.ensemble import (ensemble_noise, ensemble_run,
                                          ensemble_states, make_mesh,
                                          shard_ensemble)
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
 
 ntraj = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 nph, dt, nmd, T, delta = 100, 0.25 / 0.658, 1024, 300.0, 0.1

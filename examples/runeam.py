@@ -16,13 +16,10 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import md
-from sclmd_tpu.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
-from sclmd_tpu.utils.tools import calHF, calTC
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import baths as B
+from sclmd_jax.md import md
+from sclmd_jax.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
+from sclmd_jax.utils.tools import calHF, calTC
 
 quick = "--quick" in sys.argv
 
@@ -34,7 +31,7 @@ axyz = [["Cu"] + list(p) for p in pos]
 
 # relax the free rod first (the reference assumes structures minimized
 # externally by LAMMPS; here FIRE runs natively on the same energy)
-from sclmd_tpu.models.relax import fire_relax
+from sclmd_jax.models.relax import fire_relax
 
 pre = EAMDriver(axyz, rcut=0.9 * a0, cutoff_skin=0.6)
 pos, fmax, nit = fire_relax(pre.energy_fn, pos, tol=2e-4)
@@ -84,8 +81,8 @@ print(open(f"thermalconductance.{int(T)}.dat").read())
 # matched lead model: the Markovian Debye friction gamma = w_D pi/6 (eV)
 # corresponds to a wideband Sigma^r = -i w gamma, i.e. damping time
 # damp = hbar / gamma in ps (bpt's damp parameter).
-from sclmd_tpu import units as U
-from sclmd_tpu.negf import bpt
+from sclmd_jax import units as U
+from sclmd_jax.negf import bpt
 
 damp = U.RPC / (debye * np.pi / 6.0)
 b = bpt(drv, 0.05, damp, [catsl, catsr], num=60 if quick else 200)

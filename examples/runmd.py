@@ -1,7 +1,7 @@
 """GLE MD thermal conductance of a carbon junction (quantum baths).
 
-TPU-native counterpart of the reference workload
-/root/reference/examples/runmd.py: a C junction driven by a Tersoff
+Counterpart of the reference workload examples/runmd.py: a C
+junction driven by a Tersoff
 bond-order potential (replacing LAMMPS REBO), two quantum electron-style
 wideband baths at T(1 +- delta/2), thermal conductance from the averaged
 bath heat currents. Everything inside one jitted scan per run.
@@ -15,14 +15,10 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import md
-from sclmd_tpu.models.tersoff import TersoffDriver, graphene_ribbon
-from sclmd_tpu.utils.tools import calHF, calTC
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import baths as B
+from sclmd_jax.md import md
+from sclmd_jax.models.tersoff import TersoffDriver, graphene_ribbon
+from sclmd_jax.utils.tools import calHF, calTC
 
 
 quick = "--quick" in sys.argv
@@ -30,7 +26,7 @@ quick = "--quick" in sys.argv
 # --- geometry: armchair graphene ribbon junction, or any LAMMPS data
 # file (e.g. the reference's examples/structure.data) via --data PATH --
 if "--data" in sys.argv:
-    from sclmd_tpu.utils.io import read_lammps_data
+    from sclmd_jax.utils.io import read_lammps_data
     datafile = sys.argv[sys.argv.index("--data") + 1]
     loaded = read_lammps_data(datafile)
     axyz = loaded["axyz"]
@@ -43,7 +39,7 @@ na = len(axyz)
 # partition along the transport (x) axis with the reference's
 # proportions (runmd.py:31-38 — 20 fixed / 50 lead / 61 device / 50
 # lead / 20 fixed on the 201-atom structure.data):
-from sclmd_tpu.utils.junction import partition_by_axis, relax_for_model
+from sclmd_jax.utils.junction import partition_by_axis, relax_for_model
 
 part = partition_by_axis(axyz)
 fixdofs, ecatsl, ecatsr = part["fixdofs"], part["ecatsl"], part["ecatsr"]
@@ -54,7 +50,7 @@ def make_driver(a):
         # hydrogen-terminated input (e.g. the reference's
         # structure.data): Tersoff backbone + spectroscopic C-H
         # terminators
-        from sclmd_tpu.models.hydrocarbon import CHDriver
+        from sclmd_jax.models.hydrocarbon import CHDriver
         return CHDriver(a, dtype=jnp.float32)
     return TersoffDriver(a, dtype=jnp.float32)
 

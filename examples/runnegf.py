@@ -14,20 +14,16 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.negf import bpt
-from sclmd_tpu.models.tersoff import TersoffDriver, graphene_ribbon
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import units as U
+from sclmd_jax.negf import bpt
+from sclmd_jax.models.tersoff import TersoffDriver, graphene_ribbon
 
 
 t0 = time.time()
 if "--data" in sys.argv:
     # any LAMMPS data file, e.g. the reference's structure.data
-    from sclmd_tpu.utils.io import read_lammps_data
-    from sclmd_tpu.utils.junction import (partition_by_axis,
+    from sclmd_jax.utils.io import read_lammps_data
+    from sclmd_jax.utils.junction import (partition_by_axis,
                                           relax_for_model)
 
     axyz = read_lammps_data(sys.argv[sys.argv.index("--data") + 1])["axyz"]
@@ -35,7 +31,7 @@ if "--data" in sys.argv:
 
     def make_driver(a):
         if any(row[0] == "H" for row in a):
-            from sclmd_tpu.models.hydrocarbon import CHDriver
+            from sclmd_jax.models.hydrocarbon import CHDriver
             return CHDriver(a)
         return TersoffDriver(a, dtype=jnp.float64)
 

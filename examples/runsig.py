@@ -12,13 +12,9 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.selfenergy import sig
-from sclmd_tpu.models.tersoff import TersoffDriver, graphene_ribbon
-
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
+from sclmd_jax import units as U
+from sclmd_jax.selfenergy import sig
+from sclmd_jax.models.tersoff import TersoffDriver, graphene_ribbon
 
 
 t0 = time.time()

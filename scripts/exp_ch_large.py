@@ -2,7 +2,7 @@
 H-terminated graphene ribbon (models.hydrocarbon.terminate_with_h)
 driven by CHDriver ensembles on the chip.
 
-    SCLMD_PLATFORM=cpu python scripts/exp_ch_large.py relax [NX NY]
+    JAX_PLATFORMS=cpu python scripts/exp_ch_large.py relax [NX NY]
     python scripts/exp_ch_large.py run [NTRAJ NMD]
 """
 
@@ -12,9 +12,6 @@ import time
 
 import numpy as np
 
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(HERE, "relaxed_ribbon.npz")
@@ -23,9 +20,9 @@ CACHE = os.path.join(HERE, "relaxed_ribbon.npz")
 def phase_relax(nx=24, ny=6):
     import jax.numpy as jnp
 
-    from sclmd_tpu.models.hydrocarbon import CHDriver, terminate_with_h
-    from sclmd_tpu.models.tersoff import graphene_ribbon
-    from sclmd_tpu.utils.junction import (partition_by_axis,
+    from sclmd_jax.models.hydrocarbon import CHDriver, terminate_with_h
+    from sclmd_jax.models.tersoff import graphene_ribbon
+    from sclmd_jax.utils.junction import (partition_by_axis,
                                           relax_for_model)
 
     x = graphene_ribbon(nx, ny)
@@ -44,10 +41,10 @@ def phase_relax(nx=24, ny=6):
 def phase_run(ntraj=64, nmd=1024):
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md
-    from sclmd_tpu.models.hydrocarbon import CHDriver
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md
+    from sclmd_jax.models.hydrocarbon import CHDriver
+    from sclmd_jax.utils.junction import partition_by_axis
 
     ck = np.load(CACHE)
     axyz = [[str(e)] + list(map(float, p))

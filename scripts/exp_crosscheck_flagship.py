@@ -9,15 +9,15 @@ many-body forces, 150-DOF wideband leads.
 
 Phases:
 
-    SCLMD_PLATFORM=cpu python scripts/exp_crosscheck_flagship.py relax
-    SCLMD_PLATFORM=cpu python scripts/exp_crosscheck_flagship.py negf
+    JAX_PLATFORMS=cpu python scripts/exp_crosscheck_flagship.py relax
+    JAX_PLATFORMS=cpu python scripts/exp_crosscheck_flagship.py negf
     python scripts/exp_crosscheck_flagship.py md [--harmonic] \
         [--ntraj N] [--nmd N] [--seed S]
 
 ``negf`` (CPU, f64): CHDriver Hessian -> bpt Caroli transmission ->
 Landauer current; writes scripts/flagship_negf.npz.
 
-``md`` (TPU): antithetic common-random-numbers ensemble — two
+``md`` (accelerator): antithetic common-random-numbers ensemble — two
 RunEnsemble calls with the SAME seed and swapped lead temperatures
 (TL,TR) vs (TR,TL). Identical seeds give identical Gaussian draws
 (ops.noise sample_* use jax.random.normal(key, std.shape): the key
@@ -37,9 +37,6 @@ import time
 
 import numpy as np
 
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(HERE, "relaxed_structure.npz")
@@ -64,9 +61,9 @@ def load_axyz():
 def phase_relax():
     import jax.numpy as jnp
 
-    from sclmd_tpu.models.hydrocarbon import CHDriver
-    from sclmd_tpu.utils.io import read_lammps_data
-    from sclmd_tpu.utils.junction import (partition_by_axis,
+    from sclmd_jax.models.hydrocarbon import CHDriver
+    from sclmd_jax.utils.io import read_lammps_data
+    from sclmd_jax.utils.junction import (partition_by_axis,
                                           relax_for_model)
 
     axyz = read_lammps_data(DATA)["axyz"]
@@ -85,10 +82,10 @@ def phase_negf(num=4000):
     jax.config.update("jax_enable_x64", True)   # dense 603-DOF solves
     import jax.numpy as jnp
 
-    from sclmd_tpu import units as U
-    from sclmd_tpu.models.hydrocarbon import CHDriver
-    from sclmd_tpu.negf import bpt, landauer_current_natural
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import units as U
+    from sclmd_jax.models.hydrocarbon import CHDriver
+    from sclmd_jax.negf import bpt, landauer_current_natural
+    from sclmd_jax.utils.junction import partition_by_axis
 
     axyz = load_axyz()
     part = partition_by_axis(axyz)
@@ -130,9 +127,9 @@ def md_antithetic(axyz, part, ntraj, nmd, seed, harmonic,
 
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.models.hydrocarbon import CHDriver
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.models.hydrocarbon import CHDriver
 
     drv = CHDriver(axyz, dtype=jnp.float32)
     # the dynamical matrix must be the f64 one (f32 HVP Hessians of
@@ -177,8 +174,8 @@ def flagship_builder(axyz, part, nmd, seed, dt=DT, temp=T, dyn=None):
 
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md as MDRunner
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md as MDRunner
 
     if dyn is None:
         dyn = np.load(NEGF_CACHE)["dyn_ev2"]
@@ -201,8 +198,8 @@ def md_antithetic_warm(axyz, part, ntraj, nmd, seed, dt=DT, temp=T,
                        delta=DELTA, dyn=None):
     """Antithetic CRN ensemble with the PERIODIC-ATTRACTOR warm start —
     now a thin wrapper over the packaged estimator
-    (sclmd_tpu.parallel.ensemble.antithetic_run; VERDICT r3 item 3)."""
-    from sclmd_tpu.parallel.ensemble import antithetic_run
+    (sclmd_jax.parallel.ensemble.antithetic_run; VERDICT r3 item 3)."""
+    from sclmd_jax.parallel.ensemble import antithetic_run
 
     TL, TR = temp * (1 + delta / 2), temp * (1 - delta / 2)
     build = flagship_builder(axyz, part, nmd, seed, dt=dt, temp=temp,
@@ -213,8 +210,8 @@ def md_antithetic_warm(axyz, part, ntraj, nmd, seed, dt=DT, temp=T,
 
 def phase_md(ntraj=64, nmd=2 ** 14, seed=11, harmonic=False,
              warm=False):
-    from sclmd_tpu import units as U
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import units as U
+    from sclmd_jax.utils.junction import partition_by_axis
 
     axyz = load_axyz()
     part = partition_by_axis(axyz)

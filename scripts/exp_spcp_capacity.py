@@ -58,7 +58,7 @@ def child(ndp: int, ltraj: int = LTRAJ, nmd: int = NMD):
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, REPO)
     import __graft_entry__ as g
-    from sclmd_tpu.parallel.ensemble import (ensemble_states, make_mesh,
+    from sclmd_jax.parallel.ensemble import (ensemble_states, make_mesh,
                                              sharded_synthesis_run)
 
     sysf, _ = g._build(nph=NPH, nmd=nmd, ml=ML, with_factors=True)

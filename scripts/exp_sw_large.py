@@ -36,9 +36,9 @@ def main():
     if f64:
         jax.config.update("jax_enable_x64", True)
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import GLESystem, initial_state, run_segment_blocked
-    from sclmd_tpu.models.sw import SWDriver, diamond_cell
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import GLESystem, initial_state, run_segment_blocked
+    from sclmd_jax.models.sw import SWDriver, diamond_cell
 
     t0 = time.perf_counter()
     pos, cell = diamond_cell(12, 6, 6)

@@ -21,7 +21,7 @@ def main():
     nn = None if args.get("nn") == "auto" else int(args.get("nn", 8))
     skin = float(args.get("skin", 0.05))
 
-    from sclmd_tpu.models.sw import SWDriver, diamond_cell
+    from sclmd_jax.models.sw import SWDriver, diamond_cell
 
     pos, cell = diamond_cell(12, 6, 6)
     na = len(pos)

@@ -13,16 +13,13 @@ both temperature orderings) so the SEM is small enough to resolve the
 systematic, then reports the linear fit in dw and the Richardson
 residuals for each adjacent pair.
 
-Run on CPU:  SCLMD_PLATFORM=cpu python scripts/exp_usek_richardson.py
+Run on CPU:  JAX_PLATFORMS=cpu python scripts/exp_usek_richardson.py
 """
 
 import time
 
 import numpy as np
 
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
 
 import jax                                             # noqa: E402
 
@@ -30,12 +27,12 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp                                # noqa: E402
 
-from sclmd_tpu import baths as B                       # noqa: E402
-from sclmd_tpu import units as U                       # noqa: E402
-from sclmd_tpu.md import (GLESystem, initial_state,    # noqa: E402
+from sclmd_jax import baths as B                       # noqa: E402
+from sclmd_jax import units as U                       # noqa: E402
+from sclmd_jax.md import (GLESystem, initial_state,    # noqa: E402
                           run_segment_blocked)
-from sclmd_tpu.models.harmonic import chain_dynmat     # noqa: E402
-from sclmd_tpu.selfenergy import (                     # noqa: E402
+from sclmd_jax.models.harmonic import chain_dynmat     # noqa: E402
+from sclmd_jax.selfenergy import (                     # noqa: E402
     lead_selfenergy_from_blocks_np)
 
 k = 0.04

@@ -31,9 +31,6 @@ import time
 
 import numpy as np
 
-from sclmd_tpu.utils.platform import select_platform
-
-select_platform()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NEGF_CACHE = os.path.join(HERE, "flagship_negf.npz")
@@ -49,9 +46,9 @@ def builders(axyz, part, dyn, nmd, seed, zpmotion=True,
 
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.models.hydrocarbon import CHDriver
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.models.hydrocarbon import CHDriver
 
     drv = CHDriver(axyz, dtype=jnp.float32)
 
@@ -85,10 +82,10 @@ def exact_j(nmd):
 
 
 def main():
-    from sclmd_tpu import units as U
-    from sclmd_tpu.parallel.ensemble import (
+    from sclmd_jax import units as U
+    from sclmd_jax.parallel.ensemble import (
         harmonic_twin_delta, perturbative_anharmonic_response)
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax.utils.junction import partition_by_axis
 
     def arg(name, default, cast=int):
         return cast(sys.argv[sys.argv.index(name) + 1]) \

@@ -38,8 +38,8 @@ spec = importlib.util.spec_from_file_location(
 xc = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(xc)
 
-from sclmd_tpu import units as U  # noqa: E402
-from sclmd_tpu.utils.junction import partition_by_axis  # noqa: E402
+from sclmd_jax import units as U  # noqa: E402
+from sclmd_jax.utils.junction import partition_by_axis  # noqa: E402
 
 
 def main():

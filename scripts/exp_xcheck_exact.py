@@ -8,7 +8,7 @@ Completes the crosscheck triangle at flagship scale:
   warm MD vs Landauer           -> the bench's crosscheck_* field
 
 Pure CPU (no chip needed):
-    SCLMD_PLATFORM=cpu python scripts/exp_xcheck_exact.py [log2nmd]
+    JAX_PLATFORMS=cpu python scripts/exp_xcheck_exact.py [log2nmd]
 ~1-2 h at nmd=2^14 on one core (8193 lines x one 2412-dof triangular
 solve each).
 """
@@ -27,8 +27,8 @@ spec = importlib.util.spec_from_file_location(
 xc = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(xc)
 
-from sclmd_tpu import units as U  # noqa: E402
-from sclmd_tpu.utils.junction import partition_by_axis  # noqa: E402
+from sclmd_jax import units as U  # noqa: E402
+from sclmd_jax.utils.junction import partition_by_axis  # noqa: E402
 
 
 def main():
@@ -39,9 +39,9 @@ def main():
     jax.config.update("jax_enable_x64", True)   # keep dyn at full f64
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.ops.exact_gle import attractor_expected_currents
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.ops.exact_gle import attractor_expected_currents
 
     nmd = 2 ** (int(sys.argv[1]) if len(sys.argv) > 1 else 14)
     axyz = xc.load_axyz()

@@ -97,9 +97,9 @@ def _runner(nmd, dyn, classical=False):
 
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.utils.junction import partition_by_axis
 
     negf, axyz = _flagship()
     part = partition_by_axis(axyz)
@@ -125,7 +125,7 @@ def cov():
     14 Angstrom excursions on the ~5e-4 eV libration modes — measured
     here before switching; the Tersoff walls confine them in reality)."""
     _cpu()
-    from sclmd_tpu.ops.exact_gle import attractor_covariance
+    from sclmd_jax.ops.exact_gle import attractor_covariance
 
     log2nmd = arg("--nmd", 11)
     classical = "--classical" in sys.argv
@@ -155,9 +155,9 @@ def confine():
     _cpu()
     import jax.numpy as jnp
 
-    from sclmd_tpu.models.hydrocarbon import CHDriver
-    from sclmd_tpu.ops.anharmonic import soft_mode_confinement
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax.models.hydrocarbon import CHDriver
+    from sclmd_jax.ops.anharmonic import soft_mode_confinement
+    from sclmd_jax.utils.junction import partition_by_axis
 
     wcut = arg("--wcut", 1e-2, float)
     negf, axyz = _flagship()
@@ -181,9 +181,9 @@ def probes():
     _cpu()
     import jax.numpy as jnp
 
-    from sclmd_tpu.models.hydrocarbon import CHDriver
-    from sclmd_tpu.ops.anharmonic import mode_covariance, smeared_hessian
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax.models.hydrocarbon import CHDriver
+    from sclmd_jax.ops.anharmonic import mode_covariance, smeared_hessian
+    from sclmd_jax.utils.junction import partition_by_axis
 
     classical = "--classical" in sys.argv
     npairs = arg("--npairs", 64)
@@ -239,11 +239,11 @@ def exact():
 
     import jax.numpy as jnp
 
-    from sclmd_tpu import baths as B
-    from sclmd_tpu import units as U
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.ops.exact_gle import attractor_expected_currents
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import baths as B
+    from sclmd_jax import units as U
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.ops.exact_gle import attractor_expected_currents
+    from sclmd_jax.utils.junction import partition_by_axis
 
     which = arg("--which", "base", str)
     log2nmd = arg("--nmd", 11)
@@ -314,9 +314,9 @@ def negf():
     erratically), while the transmission INTEGRAL weighs every channel
     by its true width on both sides of the difference."""
     _cpu()
-    from sclmd_tpu import units as U
-    from sclmd_tpu.negf import bpt, landauer_current_natural
-    from sclmd_tpu.utils.junction import partition_by_axis
+    from sclmd_jax import units as U
+    from sclmd_jax.negf import bpt, landauer_current_natural
+    from sclmd_jax.utils.junction import partition_by_axis
 
     which = arg("--which", "eff", str)
     classical = "--classical" in sys.argv
@@ -352,7 +352,7 @@ def negf():
 
 
 def report():
-    from sclmd_tpu import units as U
+    from sclmd_jax import units as U
 
     negf = np.load(NEGF_CACHE)
     j_ref = float(negf["j_nat"])
@@ -499,14 +499,14 @@ def selftest():
     _cpu()
     import jax  # noqa: F401
 
-    from sclmd_tpu import baths, units  # noqa: F401
-    from sclmd_tpu.md import md  # noqa: F401
-    from sclmd_tpu.models.hydrocarbon import CHDriver  # noqa: F401
-    from sclmd_tpu.negf import bpt  # noqa: F401
-    from sclmd_tpu.ops.anharmonic import smeared_hessian  # noqa: F401
-    from sclmd_tpu.ops.exact_gle import (  # noqa: F401
+    from sclmd_jax import baths, units  # noqa: F401
+    from sclmd_jax.md import md  # noqa: F401
+    from sclmd_jax.models.hydrocarbon import CHDriver  # noqa: F401
+    from sclmd_jax.negf import bpt  # noqa: F401
+    from sclmd_jax.ops.anharmonic import smeared_hessian  # noqa: F401
+    from sclmd_jax.ops.exact_gle import (  # noqa: F401
         attractor_expected_currents)
-    from sclmd_tpu.utils.junction import partition_by_axis  # noqa: F401
+    from sclmd_jax.utils.junction import partition_by_axis  # noqa: F401
     for path in (NEGF_CACHE, confine_path()):
         assert os.path.exists(path), f"required cache missing: {path}"
     print("selftest ok")

@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 from scipy.special import gamma
 
-from sclmd_tpu import units as U
-from sclmd_tpu.ops.anharmonic import (line_variance_1d, mode_covariance,
+from sclmd_jax import units as U
+from sclmd_jax.ops.anharmonic import (line_variance_1d, mode_covariance,
                                       smeared_hessian,
                                       soft_mode_confinement)
-from sclmd_tpu.ops.functions import bose
+from sclmd_jax.ops.functions import bose
 
 
 class TestModeCovariance:

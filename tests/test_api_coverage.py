@@ -10,9 +10,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu import units as U
-from sclmd_tpu.models.harmonic import chain_dynmat
+from sclmd_jax import baths as B
+from sclmd_jax import units as U
+from sclmd_jax.models.harmonic import chain_dynmat
 
 
 class TestLambdaNonequilibrium:
@@ -113,7 +113,7 @@ class TestBathRefactorisation:
 
 class TestAnalyticIdentities:
     def test_surface_gf_np_matches_jax(self):
-        from sclmd_tpu.selfenergy import surface_gf, surface_gf_np
+        from sclmd_jax.selfenergy import surface_gf, surface_gf_np
         k = 0.1
         K00 = np.array([[2 * k]])
         K01 = np.array([[-k]])
@@ -125,7 +125,7 @@ class TestAnalyticIdentities:
             np.testing.assert_allclose(np.asarray(g_j), g_n, rtol=1e-8)
 
     def test_bpt_advangf_is_dagger_of_retargf(self):
-        from sclmd_tpu.negf import bpt
+        from sclmd_jax.negf import bpt
         d = np.zeros((6, 6))
         k = 0.1
         for i in range(5):
@@ -138,7 +138,7 @@ class TestAnalyticIdentities:
         np.testing.assert_allclose(ga, gr.conj().T, rtol=1e-10)
 
     def test_thermalconductivity_scaling(self):
-        from sclmd_tpu.negf import bpt
+        from sclmd_jax.negf import bpt
         d = np.eye(6) * 0.1
         b = bpt(d / U.RPC ** 2, 0.7, 20.0, [[0], [5]], num=20)
         b.gettm()
@@ -148,7 +148,7 @@ class TestAnalyticIdentities:
             pytest.approx(g * 20.0 / 4.0 * 10)
 
     def test_myfft_roundtrip(self):
-        from sclmd_tpu.ops.functions import myfft
+        from sclmd_jax.ops.functions import myfft
         f = myfft(0.3, 32)
         a = jnp.asarray(np.random.default_rng(0).normal(size=32))
         back = np.asarray(f.iFourier1D(f.Fourier1D(a)))
@@ -159,7 +159,7 @@ class TestAnalyticIdentities:
 
 class TestUtilityShims:
     def test_sharded_ensemble_run(self, key):
-        from sclmd_tpu.parallel.ensemble import (
+        from sclmd_jax.parallel.ensemble import (
             ensemble_noise, ensemble_run, ensemble_states, make_mesh,
             sharded_ensemble_run)
         from tests.test_parallel import _small_system
@@ -173,13 +173,13 @@ class TestUtilityShims:
                                    np.asarray(f_ref.p), rtol=1e-10)
 
     def test_compiled_cost(self):
-        from sclmd_tpu.utils.profiling import compiled_cost
+        from sclmd_jax.utils.profiling import compiled_cost
         cost = compiled_cost(lambda a, b: a @ b,
                              jnp.ones((8, 8)), jnp.ones((8, 8)))
         assert isinstance(cost, dict)
 
     def test_read_old_eph_and_reordxyz(self, tmp_path):
-        from sclmd_tpu.utils import io as MIO
+        from sclmd_jax.utils import io as MIO
         rng = np.random.default_rng(0)
         nw, n = 4, 3
         z = rng.normal(size=(nw, n, n)).astype(complex)
@@ -197,7 +197,7 @@ class TestUtilityShims:
         assert anr == [1, 3, 2] and xyz == [[0.0], [2.0], [1.0]]
 
     def test_pair_bond_and_sum(self):
-        from sclmd_tpu.models.pair import (harmonic_bond_energy,
+        from sclmd_jax.models.pair import (harmonic_bond_energy,
                                            lennard_jones_energy,
                                            sum_energies)
         pairs = (np.array([0]), np.array([1]))
@@ -210,7 +210,7 @@ class TestUtilityShims:
                                                float(elj(x)))
 
     def test_deeppot_save_load_dpstart(self, tmp_path):
-        from sclmd_tpu.models.nnp import DeepPotSE, build_neighbors, \
+        from sclmd_jax.models.nnp import DeepPotSE, build_neighbors, \
             deepmddriver
         pos = np.array([[0.0, 0.0, 0.0], [1.2, 0.0, 0.0],
                         [0.0, 1.2, 0.0]])

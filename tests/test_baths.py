@@ -1,4 +1,4 @@
-"""Tests for sclmd_tpu.baths against scalar NumPy oracles of baths.py."""
+"""Tests for sclmd_jax.baths against scalar NumPy oracles of baths.py."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
+from sclmd_jax import baths as B
 from tests.test_functions import flinterp_ref
 
 

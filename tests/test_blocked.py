@@ -10,11 +10,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import (GLESystem, initial_state, run_segment,
+from sclmd_jax import baths as B
+from sclmd_jax.md import (GLESystem, initial_state, run_segment,
                           run_segment_blocked)
-from sclmd_tpu.models.harmonic import chain_dynmat
-from sclmd_tpu.ops import noise as NZ
+from sclmd_jax.models.harmonic import chain_dynmat
+from sclmd_jax.ops import noise as NZ
 
 
 def _system(nph=24, nmd=128, ml=17, dt=0.4, with_ebath=True,
@@ -161,7 +161,7 @@ class TestBlockedEquivalence:
 
 class TestBlockedEnsemble:
     def test_vmapped_matches_per_trajectory(self, key):
-        from sclmd_tpu.parallel.ensemble import (ensemble_noise,
+        from sclmd_jax.parallel.ensemble import (ensemble_noise,
                                                  ensemble_run,
                                                  ensemble_states)
         system = _system()
@@ -183,7 +183,7 @@ class TestWrapperBlock:
         """md(..., block=8) writes the same kappa/checkpoint outputs as
         the plain path (segments chained over npie)."""
         import jax
-        from sclmd_tpu.md import md
+        from sclmd_jax.md import md
 
         def build(outdir, block):
             nat = 4
@@ -211,7 +211,7 @@ class TestWrapperBlock:
 
 class TestEnsembleCheckpoint:
     def _runner(self, outdir, seed=11, block=8):
-        from sclmd_tpu.md import md
+        from sclmd_jax.md import md
         nat = 4
         axyz = [["C", 1.0 * i, 0.0, 0.0] for i in range(nat)]
         dyn = np.asarray(chain_dynmat(3 * nat, 0.05))
@@ -231,7 +231,7 @@ class TestEnsembleCheckpoint:
         """Kill the segmented ensemble after 2 of 4 segments; a resumed
         run (even with a different RNG seed — noise is persisted)
         reproduces the uninterrupted result exactly."""
-        import sclmd_tpu.parallel.ensemble as PE
+        import sclmd_jax.parallel.ensemble as PE
 
         d1, d2 = tmp_path / "full", tmp_path / "cut"
         d1.mkdir(); d2.mkdir()
@@ -263,7 +263,7 @@ class TestEnsembleCheckpoint:
         through the SECOND chunk; the resume skips the finished chunk,
         finishes the broken one from its persisted noise, and runs the
         rest — reproducing the uninterrupted chunked result exactly."""
-        import sclmd_tpu.parallel.ensemble as PE
+        import sclmd_jax.parallel.ensemble as PE
 
         d1, d2 = tmp_path / "full", tmp_path / "cut"
         d1.mkdir(); d2.mkdir()

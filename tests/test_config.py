@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from sclmd_tpu.utils.config import BathConfig, MDConfig
-from sclmd_tpu.utils.profiling import Tracer, flops_estimate_gle_step
+from sclmd_jax.utils.config import BathConfig, MDConfig
+from sclmd_jax.utils.profiling import Tracer, flops_estimate_gle_step
 
 
 class TestConfig:
@@ -40,7 +40,7 @@ class TestConfig:
             BathConfig(kind="weird", cats=[0], T=300.0).validate()
 
     def test_build_and_run(self, tmp_path):
-        from sclmd_tpu.models.harmonic import chain_dynmat
+        from sclmd_jax.models.harmonic import chain_dynmat
         cfg = self._cfg(outdir=str(tmp_path), dtype="float64",
                         constraints=[[9, 10, 11]])
         nat = 4
@@ -55,7 +55,7 @@ class TestConfig:
     def test_build_named_driver(self, tmp_path):
         """driver="sw" constructs the model from axyz and derives the
         dynamical matrix automatically; the run produces currents."""
-        from sclmd_tpu.models.sw import diamond_cell
+        from sclmd_jax.models.sw import diamond_cell
 
         pos, cell = diamond_cell(1, 1, 2)
         axyz = [["Si"] + list(p) for p in pos]
@@ -77,7 +77,7 @@ class TestConfig:
             MDConfig(dt=0.4, nmd=32, T=100.0, driver="rebo").validate()
 
     def test_build_with_lambda_file(self, tmp_path, rng):
-        from sclmd_tpu.utils.io import WritewbLambda
+        from sclmd_jax.utils.io import WritewbLambda
         n = 3
         eta = np.eye(n) * 0.02
         z = np.zeros((n, n))

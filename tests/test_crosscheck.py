@@ -13,11 +13,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu import units as U
-from sclmd_tpu.md import initial_state, run_segment
-from sclmd_tpu.negf import landauer_current_natural
-from sclmd_tpu.models.harmonic import chain_dynmat
+from sclmd_jax import baths as B
+from sclmd_jax import units as U
+from sclmd_jax.md import initial_state, run_segment
+from sclmd_jax.negf import landauer_current_natural
+from sclmd_jax.models.harmonic import chain_dynmat
 from tests.test_md import make_system
 
 
@@ -217,7 +217,7 @@ def test_warm_start_conductance_matches_negf(key):
     md.gle_step_jacobian / periodic_fixed_point / state_(un)ravel —
     the deterministic TestPeriodicWarmStart covers only the fixed-point
     property, not the measured observable."""
-    from sclmd_tpu.md import (gle_step_jacobian, period_power,
+    from sclmd_jax.md import (gle_step_jacobian, period_power,
                               periodic_fixed_point, state_ravel,
                               state_unravel)
 
@@ -273,7 +273,7 @@ def test_warm_start_conductance_matches_negf(key):
     # nmd=2^13 is large and oscillatory (-19.6% here, +3.4% at 2^14,
     # -0.8% at 2^15 vs continuum Landauer), and the warm estimator
     # must land on the attractor value to pure statistics
-    from sclmd_tpu.ops.exact_gle import attractor_expected_currents
+    from sclmd_jax.ops.exact_gle import attractor_expected_currents
 
     sys_th = make_system(
         dyn, [b.prepare_noise() for b in baths_at(TL, TR)], dt, nmd)
@@ -353,7 +353,7 @@ def _usek_chain_setup():
 def _usek_landauer(k, nph, D, K00, K01, V01, TL, TR, classical):
     """Continuum NEGF reference: dense Caroli with the decimated
     Sigma on both ends (the deterministic side of the crosscheck)."""
-    from sclmd_tpu.selfenergy import lead_selfenergy_from_blocks_np
+    from sclmd_jax.selfenergy import lead_selfenergy_from_blocks_np
 
     D_negf = D.copy()
     D_negf[0, 0] += k
@@ -395,10 +395,10 @@ def _usek_rebased(classical, seed, nens=4096):
     """
     import tempfile
 
-    from sclmd_tpu.md import md as MDRunner
-    from sclmd_tpu.ops.exact_gle import (attractor_expected_currents,
+    from sclmd_jax.md import md as MDRunner
+    from sclmd_jax.ops.exact_gle import (attractor_expected_currents,
                                          prepare_attractor)
-    from sclmd_tpu.parallel.ensemble import _noisy_system, antithetic_run
+    from sclmd_jax.parallel.ensemble import _noisy_system, antithetic_run
 
     k, nph, dt, T, delta, nmd, ml, D, K00, K01, V01 = _usek_chain_setup()
     TL, TR = T * (1 + delta / 2), T * (1 - delta / 2)
@@ -453,7 +453,7 @@ def test_equilibrium_power_spectrum_matches_negf(key):
     equilibrium junction matches the NEGF harmonic power spectrum
     -2 w^2 n_B Tr Im G^r (negf.py:232) — the reference computes both
     (md.GetPower vs bpt.getps) but never compares them."""
-    from sclmd_tpu.ops.functions import bose, powerspecp
+    from sclmd_jax.ops.functions import bose, powerspecp
 
     nph, k_spring = 6, 0.04
     dt, nmd = 0.25 / 0.658, 2 ** 13

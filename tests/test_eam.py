@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sclmd_tpu.models.eam import (
+from sclmd_jax.models.eam import (
     EAMDriver, SUTTON_CHEN_PARAMS, eam_tabulated_energy, fcc_cell,
     read_setfl, sutton_chen_tables, write_setfl)
 
@@ -95,7 +95,7 @@ class TestSuttonChen:
             assert resid < 1e-8, (ax, resid)
 
     def test_nve_energy_conservation(self):
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
 
         axyz, cell, rc = _small_cu()
         drv = EAMDriver(axyz, cell=cell, rcut=rc)
@@ -173,7 +173,7 @@ class TestSetfl:
         rng = np.random.default_rng(5)
         pos = pos + 0.05 * rng.standard_normal(pos.shape)
         types = np.arange(len(pos)) % 2
-        from sclmd_tpu.models.nnp import build_neighbors
+        from sclmd_jax.models.nnp import build_neighbors
         nbr, mask = build_neighbors(pos, rc, None, skin=0.3)
         efn = eam_tabulated_energy(tbl, types, nbr, mask)
         e_jax = float(efn(jnp.asarray(pos)))
@@ -212,7 +212,7 @@ class TestEAMTransport:
     def test_bpt_from_driver_object(self):
         """NEGF workflow from an EAM driver: dynamical matrix ->
         transmission on a small Cu slab."""
-        from sclmd_tpu.negf import bpt
+        from sclmd_jax.negf import bpt
 
         axyz, cell, rc = _small_cu()
         drv = EAMDriver(axyz, cell=cell, rcut=rc)

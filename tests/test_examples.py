@@ -1,5 +1,5 @@
 """Example smoke tests: each reference-workload counterpart must run
-end-to-end on CPU (SCLMD_PLATFORM=cpu) in a clean directory.
+end-to-end on CPU (JAX_PLATFORMS=cpu) in a clean directory.
 
 All 8 runnable workloads are covered: the flagship runmd and the bias
 workload rundp run in their --quick configurations."""
@@ -30,8 +30,7 @@ QUICK_EXAMPLES = [
                          ids=[s for s, _ in QUICK_EXAMPLES])
 def test_example_runs(tmp_path, script, args):
     env = dict(os.environ)
-    env["SCLMD_PLATFORM"] = "cpu"
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", script)] + args,
         cwd=tmp_path, env=env, capture_output=True, text=True,

@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from sclmd_tpu import units as U
-from sclmd_tpu.models.fsiesta import FsiestaClient, MockFsiestaServer
-from sclmd_tpu.models.native import SiestaDriver
+from sclmd_jax import units as U
+from sclmd_jax.models.fsiesta import FsiestaClient, MockFsiestaServer
+from sclmd_jax.models.native import SiestaDriver
 
 
 def _harmonic(k=0.3, x0=None):

@@ -1,4 +1,4 @@
-"""Unit tests for sclmd_tpu.ops.functions against tiny NumPy re-derivations.
+"""Unit tests for sclmd_jax.ops.functions against tiny NumPy re-derivations.
 
 Oracles below re-derive the reference conventions independently
 (functions.py:17-53 FFT pair, 80-114 Bose/Fermi edges, 117-143 flinterp).
@@ -9,8 +9,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.ops import functions as F
+from sclmd_jax import units as U
+from sclmd_jax.ops import functions as F
 
 
 KB = U.KB

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sclmd_tpu.postprocess import hssigma as HSX
-from sclmd_tpu.postprocess.lambda_pipeline import LambdaPipeline, \
+from sclmd_jax.postprocess import hssigma as HSX
+from sclmd_jax.postprocess.lambda_pipeline import LambdaPipeline, \
     fft_order_grid
 
 

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sclmd_tpu.models.hydrocarbon import CHDriver, ch_energy
+from sclmd_jax.models.hydrocarbon import CHDriver, ch_energy
 
 REF_DATA = "/root/reference/examples/structure.data"
 
@@ -28,8 +28,8 @@ def benzene():
 
 class TestTerminate:
     def test_ribbon_edges_passivated(self):
-        from sclmd_tpu.models.hydrocarbon import terminate_with_h
-        from sclmd_tpu.models.tersoff import graphene_ribbon
+        from sclmd_jax.models.hydrocarbon import terminate_with_h
+        from sclmd_jax.models.tersoff import graphene_ribbon
 
         x = graphene_ribbon(4, 3)
         axyz = [["C", *row] for row in x]
@@ -74,7 +74,7 @@ class TestCHDriver:
         reference's convention, lammpsdriver.py:83-84), whose exact
         conserved quantity is KE + PE(q) + f0.q — benzene's guessed
         ring radius is not this model's equilibrium, so f0 != 0."""
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
 
         axyz = benzene()
         drv = CHDriver(axyz)
@@ -104,8 +104,8 @@ class TestCHDriver:
 def test_ch_ensemble_runs(tmp_path):
     """CHDriver + RunEnsemble: the flagship-workload combination
     (vmapped trajectories over a many-body C/H junction)."""
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import md
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import md
 
     axyz = benzene()
     drv = CHDriver(axyz)
@@ -131,7 +131,7 @@ class TestFlagshipStructure:
 
     @pytest.fixture(scope="class")
     def driver(self):
-        from sclmd_tpu.utils.io import read_lammps_data
+        from sclmd_jax.utils.io import read_lammps_data
         loaded = read_lammps_data(REF_DATA)
         return loaded, CHDriver(loaded["axyz"])
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sclmd_tpu.utils import io as MIO
+from sclmd_jax.utils import io as MIO
 
 
 class TestEPH:
@@ -94,7 +94,7 @@ class TestLambda:
         """End-to-end: Lambda file -> biased ebath with wind forces
         (the rundp.py workflow, examples/current-induced/rundp.py:10,78)."""
         import jax.numpy as jnp
-        from sclmd_tpu import baths as B
+        from sclmd_jax import baths as B
         nw, n = 5, 3
         wl = np.linspace(0.05, 0.45, nw)
         MIO.WriteLambda(str(tmp_path / "lam.npz"), wl, np.array([0.5, 0.0]),

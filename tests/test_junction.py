@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from sclmd_tpu.utils.junction import partition_by_axis, relax_for_model
+from sclmd_jax.utils.junction import partition_by_axis, relax_for_model
 
 REF_DATA = "/root/reference/examples/structure.data"
 
@@ -33,7 +33,7 @@ def test_partition_matches_reference_ranges():
     """On the x-ordered 201-atom structure.data the default partition
     reproduces the reference's hand-coded index ranges
     (ref examples/runmd.py:31-38)."""
-    from sclmd_tpu.utils.io import read_lammps_data
+    from sclmd_jax.utils.io import read_lammps_data
 
     axyz = read_lammps_data(REF_DATA)["axyz"]
     p = partition_by_axis(axyz)
@@ -44,7 +44,7 @@ def test_partition_matches_reference_ranges():
 
 
 def test_relax_for_model_freezes_fixed():
-    from sclmd_tpu.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
+    from sclmd_jax.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
 
     a0 = SUTTON_CHEN_PARAMS["Cu"]["a"]
     pos, _ = fcc_cell(2, 2, 2, a0)

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu.postprocess import lambda_pipeline as LP
+from sclmd_jax.postprocess import lambda_pipeline as LP
 
 
 def small_model(rng, n=6, nm=3, ne=128, emax=4.0, gam=0.8):
@@ -227,7 +227,7 @@ class TestBiasAnalysis:
         z = np.zeros((1, 1))
         T = 300.0
         blist, nph = LP.joule_heating(0.4, 3, hw, eta, z, xip, z, z, T=T)
-        from sclmd_tpu.ops.functions import bose
+        from sclmd_jax.ops.functions import bose
         assert nph[0, 0] == pytest.approx(float(bose(0.1, T)), rel=1e-10)
         assert nph[-1, 0] > nph[0, 0]     # bias heats the mode
 

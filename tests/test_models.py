@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.models import pair as P
-from sclmd_tpu.models.driver import HostDriver, JaxDriver
-from sclmd_tpu.models.harmonic import HarmonicDriver, chain_dynmat
+from sclmd_jax import units as U
+from sclmd_jax.models import pair as P
+from sclmd_jax.models.driver import HostDriver, JaxDriver
+from sclmd_jax.models.harmonic import HarmonicDriver, chain_dynmat
 
 
 def lj_oracle(x, eps, sig, rc, pairs, shift=True):
@@ -153,8 +153,8 @@ class TestJaxDriver:
 
     def test_md_with_jax_driver(self, key):
         """Full GLE MD with a real anharmonic JAX potential driver."""
-        from sclmd_tpu import baths as B
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax import baths as B
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
         r0 = 1.53
         na = 6
         axyz = [["C", r0 * i, 0.0, 0.0] for i in range(na)]
@@ -196,8 +196,8 @@ class TestHostDriver:
                                    rtol=1e-12)
 
     def test_host_driver_in_md(self, key):
-        from sclmd_tpu import baths as B
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax import baths as B
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
         dyn = np.asarray(chain_dynmat(6, 0.1))
 
         class NumpyEngine:

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain")
 
-from sclmd_tpu.models import native as NV   # noqa: E402
-from sclmd_tpu.models import pair as P      # noqa: E402
-from sclmd_tpu.models.driver import HostDriver, JaxDriver  # noqa: E402
+from sclmd_jax.models import native as NV   # noqa: E402
+from sclmd_jax.models import pair as P      # noqa: E402
+from sclmd_jax.models.driver import HostDriver, JaxDriver  # noqa: E402
 
 
 def _chain_axyz(na=6, a=1.5):
@@ -74,8 +74,8 @@ class TestNativeDriver:
                                    atol=1e-10)
 
     def test_in_md_via_host_driver(self, lib, key):
-        from sclmd_tpu import baths as B
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax import baths as B
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
         axyz = _chain_axyz()
         nd = NV.NativeDriver(axyz, ("morse", 2.0, 1.8, 1.5, 4.0))
         hd = HostDriver(nd, nph=18, dtype=jnp.float64)
@@ -152,8 +152,8 @@ class TestPipeDriver:
 
 class TestNativeNeighbors:
     def test_matches_numpy_builder(self, rng):
-        from sclmd_tpu.models.native import native_neighbors
-        from sclmd_tpu.models.nnp import build_neighbors
+        from sclmd_jax.models.native import native_neighbors
+        from sclmd_jax.models.nnp import build_neighbors
         x = rng.uniform(0, 12.0, size=(80, 3))
         for cell in (None, np.array([12.0, 12.0, 12.0])):
             nbr_py, mask_py = build_neighbors(x, 2.5, 12, cell=cell,
@@ -166,8 +166,8 @@ class TestNativeNeighbors:
 
     def test_small_periodic_cell(self, rng):
         """Cells with < 3 bins per axis exercise the wrap/dedupe path."""
-        from sclmd_tpu.models.native import native_neighbors
-        from sclmd_tpu.models.nnp import build_neighbors
+        from sclmd_jax.models.native import native_neighbors
+        from sclmd_jax.models.nnp import build_neighbors
         x = rng.uniform(0, 5.0, size=(20, 3))
         cell = np.array([5.0, 5.0, 5.0])
         nbr_py, mask_py = build_neighbors(x, 2.2, 16, cell=cell,
@@ -178,7 +178,7 @@ class TestNativeNeighbors:
 
     def test_auto_backend_consistency(self, rng):
         """backend='native' == backend='numpy' through build_neighbors."""
-        from sclmd_tpu.models.nnp import build_neighbors
+        from sclmd_jax.models.nnp import build_neighbors
         x = rng.uniform(0, 20.0, size=(150, 3))
         a = build_neighbors(x, 3.0, 10, backend="numpy")
         b = build_neighbors(x, 3.0, 10, backend="native")

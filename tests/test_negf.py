@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.negf import bpt, landauer_current_natural
-from sclmd_tpu.selfenergy import (lead_selfenergy_from_blocks, sig,
+from sclmd_jax import units as U
+from sclmd_jax.negf import bpt, landauer_current_natural
+from sclmd_jax.selfenergy import (lead_selfenergy_from_blocks, sig,
                                   surface_gf)
 
 
@@ -405,7 +405,7 @@ class TestShardedEnergyGrid:
     def test_gettm_sharded_matches_serial(self):
         """Energy-grid parallelism: omega sweep sharded over the 8-device
         mesh == the single-device sweep."""
-        from sclmd_tpu.parallel.ensemble import make_mesh
+        from sclmd_jax.parallel.ensemble import make_mesh
         k, damp = 0.1, 20.0
         n = 10
         d = np.zeros((n, n))
@@ -419,7 +419,7 @@ class TestShardedEnergyGrid:
         np.testing.assert_allclose(tm_sharded, tm_serial, rtol=1e-12)
 
     def test_getps_sharded_matches_serial(self):
-        from sclmd_tpu.parallel.ensemble import make_mesh
+        from sclmd_jax.parallel.ensemble import make_mesh
         k, damp = 0.1, 20.0
         n = 6
         d = np.zeros((n, n))
@@ -433,7 +433,7 @@ class TestShardedEnergyGrid:
         np.testing.assert_allclose(ps_sharded, ps_serial, rtol=1e-12)
 
     def test_getse_sharded_matches_serial(self):
-        from sclmd_tpu.parallel.ensemble import make_mesh
+        from sclmd_jax.parallel.ensemble import make_mesh
         k = 0.1
         n = 16
         d = np.zeros((n, n))

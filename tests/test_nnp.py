@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu.models import pair as P
-from sclmd_tpu.models.nnp import DeepPotSE, build_neighbors, deepmddriver
+from sclmd_jax.models import pair as P
+from sclmd_jax.models.nnp import DeepPotSE, build_neighbors, deepmddriver
 
 
 def _structure(na=8, a=1.6, jitter=0.0, rng=None):
@@ -133,8 +133,8 @@ class TestTraining:
 
 class TestDriverIntegration:
     def test_md_with_nnp_driver(self, model, key):
-        from sclmd_tpu import baths as B
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax import baths as B
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
         m, x = model
         axyz = [["C" if t == 0 else "H", *row]
                 for t, row in zip([0, 1] * 4, x)]
@@ -287,7 +287,7 @@ class TestDeepMDImport:
     def test_wire_reader_roundtrip(self, rng):
         """Every Const tensor written into the synthetic graph comes
         back bit-exact through the wire parser."""
-        from sclmd_tpu.utils.tfpb import read_graph_consts
+        from sclmd_jax.utils.tfpb import read_graph_consts
 
         pb = _synth_deepmd_pb(rng)
         consts, ops = read_graph_consts(pb)
@@ -306,7 +306,7 @@ class TestDeepMDImport:
         """Imported graph -> JAX evaluator: finite energy, forces =
         -grad by construction, translation invariance, and the
         deepmddriver wrapper runs the reference protocol."""
-        from sclmd_tpu.models.deepmd_import import DeepPotPB, \
+        from sclmd_jax.models.deepmd_import import DeepPotPB, \
             deepmd_pb_driver
 
         pb = _synth_deepmd_pb(rng)
@@ -338,7 +338,7 @@ class TestDeepMDImport:
     def test_typed_neighbor_blocks(self, rng):
         """Slots are type-blocked with per-type sel widths; overflow is
         a hard error (deepmd-kit's behavior)."""
-        from sclmd_tpu.models.deepmd_import import build_typed_neighbors
+        from sclmd_jax.models.deepmd_import import build_typed_neighbors
 
         els, xyz = self._structure(rng)
         types = np.array([0 if e == "C" else 1 for e in els])

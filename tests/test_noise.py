@@ -1,4 +1,4 @@
-"""Tests for the batched colored-noise synthesis (sclmd_tpu.ops.noise).
+"""Tests for the batched colored-noise synthesis (sclmd_jax.ops.noise).
 
 Checks PSD construction against scalar NumPy oracles of noise.py:169-186,
 and statistical properties (variance sum rule, stationarity of the
@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import units as U
-from sclmd_tpu.ops import noise as N
+from sclmd_jax import units as U
+from sclmd_jax.ops import noise as N
 from tests.test_functions import bose_ref, equ_ref
 
 
@@ -147,7 +147,7 @@ class TestSynthesis:
 class TestProportionalFactorisation:
     def test_reconstruction_matches_psd(self, rng):
         """The single-eigh fast path reconstructs the PSD exactly."""
-        from sclmd_tpu.ops.noise import noise_factors
+        from sclmd_jax.ops.noise import noise_factors
         nc, nw = 12, 33
         m = rng.normal(size=(nc, nc))
         s0 = m @ m.T + nc * np.eye(nc)          # SPD reference matrix
@@ -159,7 +159,7 @@ class TestProportionalFactorisation:
         np.testing.assert_allclose(rec, psd, rtol=1e-10)
 
     def test_nonproportional_falls_back(self, rng):
-        from sclmd_tpu.ops.noise import noise_factors
+        from sclmd_jax.ops.noise import noise_factors
         nc, nw = 12, 9
         psd = np.stack([(lambda m: m @ m.T + nc * np.eye(nc))(
             rng.normal(size=(nc, nc))) for _ in range(nw)]).astype(complex)
@@ -171,7 +171,7 @@ class TestProportionalFactorisation:
     def test_sample_noise_dev_prop_path(self, rng, key):
         """sample_noise_dev routes broadcast factor batches through the
         single-matrix prop sampler and matches sample_noise bit-close."""
-        from sclmd_tpu import baths as B
+        from sclmd_jax import baths as B
         nc, nmd, dt = 8, 64, 0.4
         gwl = np.linspace(0.0, 0.6, 8)
         gam = np.array([np.eye(nc) * 0.02 * np.exp(-(w / 0.3) ** 2)
@@ -209,7 +209,7 @@ class TestProportionalFactorisation:
     def test_sampling_statistics_preserved(self, rng):
         """Noise sampled through the fast path has the target PSD
         covariance (gauge-independent check)."""
-        from sclmd_tpu.ops.noise import noise_factors, sample_noise_np
+        from sclmd_jax.ops.noise import noise_factors, sample_noise_np
         nc, nmd, dt = 9, 64, 0.4
         m = rng.normal(size=(nc, nc))
         s0 = m @ m.T + nc * np.eye(nc)

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu import baths as B
-from sclmd_tpu.md import GLESystem, initial_state, run_segment
-from sclmd_tpu.models.harmonic import chain_dynmat
-from sclmd_tpu.parallel.ensemble import (ensemble_noise, ensemble_run,
+from sclmd_jax import baths as B
+from sclmd_jax.md import GLESystem, initial_state, run_segment
+from sclmd_jax.models.harmonic import chain_dynmat
+from sclmd_jax.parallel.ensemble import (ensemble_noise, ensemble_run,
                                          ensemble_states, make_mesh,
                                          shard_ensemble)
 
@@ -133,10 +133,10 @@ def test_sharded_manybody_force_matches_unsharded(key):
     """A many-body (CHDriver) force inside the vmapped integrator
     partitions over a dp mesh with bit-identical results — the
     flagship-class workload's multi-chip path."""
-    from sclmd_tpu import baths as B
-    from sclmd_tpu.md import GLESystem
+    from sclmd_jax import baths as B
+    from sclmd_jax.md import GLESystem
     from tests.test_hydrocarbon import benzene
-    from sclmd_tpu.models.hydrocarbon import CHDriver
+    from sclmd_jax.models.hydrocarbon import CHDriver
 
     axyz = benzene()
     drv = CHDriver(axyz)
@@ -176,7 +176,7 @@ class TestShardedSynthesis:
             b.prepare_noise() for b in system.baths))
 
     def test_sharded_synthesis_matches_unsharded(self, key):
-        from sclmd_tpu.parallel.ensemble import sharded_synthesis_run
+        from sclmd_jax.parallel.ensemble import sharded_synthesis_run
 
         mesh = make_mesh({"dp": 8})
         sysf = self._factored()
@@ -208,7 +208,7 @@ class TestShardedSynthesis:
         """noise_window streams the TIME axis: windowed trajectories
         reproduce the full-noise run to roundoff (same draws, exact
         window sampler)."""
-        from sclmd_tpu.parallel.ensemble import sharded_synthesis_run
+        from sclmd_jax.parallel.ensemble import sharded_synthesis_run
 
         mesh = make_mesh({"dp": 4})
         sysf = self._factored(nmd=64)
@@ -228,7 +228,7 @@ class TestShardedSynthesis:
     def test_windowed_blocked_integrator(self, key):
         """Windowed streaming composes with the blocked fast path and a
         nonzero segment offset."""
-        from sclmd_tpu.parallel.ensemble import sharded_synthesis_run
+        from sclmd_jax.parallel.ensemble import sharded_synthesis_run
 
         mesh = make_mesh({"dp": 4})
         sysf = self._factored(nmd=64)

@@ -5,8 +5,8 @@ import numpy as np
 
 import pytest
 
-from sclmd_tpu.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
-from sclmd_tpu.models.relax import fire_relax, lbfgs_relax
+from sclmd_jax.models.eam import EAMDriver, SUTTON_CHEN_PARAMS, fcc_cell
+from sclmd_jax.models.relax import fire_relax, lbfgs_relax
 
 
 @pytest.mark.parametrize("relaxer", [fire_relax, lbfgs_relax],

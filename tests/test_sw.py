@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu.models.nnp import build_neighbors
-from sclmd_tpu.models.sw import (SW_PARAMS, SWDriver, diamond_cell,
+from sclmd_jax.models.nnp import build_neighbors
+from sclmd_jax.models.sw import (SW_PARAMS, SWDriver, diamond_cell,
                                  sw_energy)
 
 
@@ -94,7 +94,7 @@ class TestSWDriver:
         and PE(q) = driver.energy(q) (eV) directly — dPE/dq_i =
         conv_i dE/dx_i = -f_nat_i, so KE + PE is the conserved energy.
         """
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
 
         axyz, cell = self._junction()
         drv = SWDriver(axyz, cell=cell)
@@ -125,7 +125,7 @@ class TestSWNegf:
         """bpt accepts a driver directly (hasattr .dynmat branch): the
         full workflow junction -> dynamical matrix -> transmission on an
         SW-silicon slab."""
-        from sclmd_tpu.negf import bpt
+        from sclmd_jax.negf import bpt
 
         pos, cell = diamond_cell(1, 1, 2)
         axyz = [["Si"] + list(p) for p in pos]

@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sclmd_tpu.models.nnp import build_neighbors
-from sclmd_tpu.models.tersoff import (TersoffDriver, graphene_ribbon,
+from sclmd_jax.models.nnp import build_neighbors
+from sclmd_jax.models.tersoff import (TersoffDriver, graphene_ribbon,
                                       tersoff_energy)
 
 
@@ -66,6 +66,19 @@ class TestManyBody:
             np.testing.assert_allclose(f[i, c], fd, rtol=1e-5, atol=1e-7)
 
 
+    def test_float32_forces_track_float64(self, rng):
+        """The angular term 1 + c^2/d^2 - c^2/(d^2 + u) cancels two
+        ~8e7 terms for carbon; in its one-quotient form the float32
+        force stays within 2e-5 of the float64 one (the textbook form
+        is off by ~3e-5 to 7e-5 on this ribbon)."""
+        x = graphene_ribbon(4, 2) + rng.normal(size=(16, 3)) * 0.02
+        nbr, mask = build_neighbors(x, 2.2, 8)
+        grad = jax.jit(jax.grad(tersoff_energy("C", nbr, mask)))
+        f64 = np.asarray(grad(jnp.asarray(x, jnp.float64)))
+        f32 = np.asarray(grad(jnp.asarray(x, jnp.float32)), np.float64)
+        assert np.abs(f32 - f64).max() / np.abs(f64).max() < 2e-5
+
+
 class TestDriver:
     def _driver(self):
         x = graphene_ribbon(3, 2)
@@ -90,8 +103,8 @@ class TestDriver:
         assert ev.max() > 1e-3
 
     def test_md_runs_with_tersoff(self, key):
-        from sclmd_tpu import baths as B
-        from sclmd_tpu.md import GLESystem, initial_state, run_segment
+        from sclmd_jax import baths as B
+        from sclmd_jax.md import GLESystem, initial_state, run_segment
         drv = self._driver()
         nph = 3 * drv.number
         dt, nmd = 0.4, 64
@@ -113,8 +126,8 @@ class TestDriver:
 class TestMultiElement:
     def test_sic_mixing_reduces_to_single_for_pure(self, rng):
         """Multi-element kernel == single-element kernel on pure Si."""
-        from sclmd_tpu.models.nnp import build_neighbors
-        from sclmd_tpu.models.tersoff import (tersoff_energy,
+        from sclmd_jax.models.nnp import build_neighbors
+        from sclmd_jax.models.tersoff import (tersoff_energy,
                                               tersoff_energy_multi)
         x = np.array([[0, 0, 0], [2.35, 0, 0], [1.2, 2.0, 0],
                       [3.5, 2.0, 0.3]]) + rng.normal(size=(4, 3)) * 0.02
@@ -134,8 +147,8 @@ class TestMultiElement:
 
     def test_chi_weakens_hetero_bond(self):
         """chi_SiC < 1 reduces the attractive branch vs chi = 1."""
-        from sclmd_tpu.models.nnp import build_neighbors
-        from sclmd_tpu.models.tersoff import (TERSOFF_CHI,
+        from sclmd_jax.models.nnp import build_neighbors
+        from sclmd_jax.models.tersoff import (TERSOFF_CHI,
                                               tersoff_energy_multi)
         x = np.array([[0.0, 0, 0], [1.85, 0, 0]])
         nbr, mask = build_neighbors(x, 3.0, 2)

@@ -1,9 +1,9 @@
-"""Tests for the analysis utilities (sclmd_tpu.utils.tools)."""
+"""Tests for the analysis utilities (sclmd_jax.utils.tools)."""
 
 import numpy as np
 import pytest
 
-from sclmd_tpu.utils import tools as T
+from sclmd_jax.utils import tools as T
 
 
 def _write_kappa(tmpdir, values, temp=300):
@@ -100,9 +100,9 @@ class TestAniAnalytics:
 class TestNNPDataPrep:
     def test_prepare_nnp_data(self, tmp_path):
         import jax.numpy as jnp
-        from sclmd_tpu.models.harmonic import chain_dynmat
-        from sclmd_tpu.models.driver import JaxDriver
-        from sclmd_tpu.models import pair as P
+        from sclmd_jax.models.harmonic import chain_dynmat
+        from sclmd_jax.models.driver import JaxDriver
+        from sclmd_jax.models import pair as P
 
         axyz = [["C", 1.5 * i, 0.0, 0.0] for i in range(4)]
         x0 = np.array([a[1:] for a in axyz])
